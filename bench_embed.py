@@ -1,25 +1,24 @@
-"""On-TPU embed throughput — the driver's "chunks/sec embed" companion
-metric (BASELINE.md §6; VERDICT r3 item 2: named after three rounds
-with no number).
+"""On-device embed throughput — the "chunks/sec embed" companion
+metric (BASELINE.md §6), on one GPU.
 
 What the reference can do: Vertex ``gemini-embedding-001`` is ONE input
 per request (embedding_provider.py:89), batch-50 jobs logging items/s
 per batch (embedding_worker.py:269-272) — wire-latency-bound, typically
-single-digit items/s per worker. The on-TPU encoder deletes that
+single-digit items/s per worker. The on-device encoder deletes that
 bottleneck: a 12L/768d bf16 transformer encoding batches straight into
 the HBM index.
 
-Measures on the real chip:
+Measures on the GPU (fails without one):
 1. cold-start compile time of the serving encode program;
 2. warm encode throughput (texts/s) over realistic policy paragraphs,
-   batch ladder × {seq-bucketed, full-512-pad} — the seq-bucket win is
-   a round-4 optimization (encoder.py _SEQ_BUCKETS);
+   batch ladder × {seq-bucketed, full-512-pad} (encoder.py
+   _SEQ_BUCKETS);
 3. end-to-end ingest rate (extract → chunk → featurize/Aho-Corasick →
    encode → publish) through IngestPipeline.upload(instant=True),
    chunks/sec.
 
-Writes eval_artifacts/BENCH_r4_embed_throughput.json; prints one JSON
-line. Usage: PYTHONPATH="$PYTHONPATH:/root/repo" python bench_embed.py
+Writes eval_artifacts/BENCH_embed_throughput.json; prints one JSON
+line. Usage: python bench_embed.py
 """
 from __future__ import annotations
 
@@ -27,10 +26,12 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 import time
 
 os.environ.setdefault("MRAG_ENCODER_BATCH_BUCKETS", "1,8,32,128,512")
-os.environ.setdefault("MRAG_DATA_DIR", "/tmp/mrag-bench-embed")
+os.environ.setdefault("MRAG_DATA_DIR", os.path.join(
+    tempfile.gettempdir(), "mrag-bench-embed"))
 
 import numpy as np
 
@@ -87,7 +88,10 @@ def main() -> None:
     from mobius_rag_tpu.models import encoder as enc_mod
     from mobius_rag_tpu.models.encoder import EncoderConfig, EncoderModel
 
-    log(f"backend={jax.default_backend()} {jax.devices()}")
+    from mobius_rag_tpu.utils.device import measurement_device
+
+    device = measurement_device()
+    log(f"device={device}")
 
     # Production-size encoder (12L/768d/seq512/out1536). Throughput is
     # params-value-independent; the trained checkpoint (4L small config)
@@ -168,6 +172,7 @@ def main() -> None:
         "metric": "embed_throughput_onchip_texts_per_s",
         "value": best,
         "unit": "texts/sec",
+        "device": device,
         "vs_baseline": None,
         "encoder": {"layers": cfg.num_layers, "model_dim": cfg.model_dim,
                     "max_seq": cfg.max_seq, "out_dim": cfg.out_dim,
@@ -190,9 +195,10 @@ def main() -> None:
     print(json.dumps({"metric": art["metric"], "value": art["value"],
                       "unit": art["unit"],
                       "ingest_e2e_chunks_per_s": art["ingest_e2e_chunks_per_s"]}))
-    os.makedirs("/root/repo/eval_artifacts", exist_ok=True)
-    with open("/root/repo/eval_artifacts/BENCH_r4_embed_throughput.json",
-              "w") as f:
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "eval_artifacts")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "BENCH_embed_throughput.json"), "w") as f:
         json.dump(art, f, indent=1)
 
 

@@ -1,11 +1,11 @@
-"""Scale benchmark: 1M-chunk corpus on one chip — exact bf16 scan vs
+"""Scale benchmark: 1M-chunk corpus on one GPU — exact bf16 scan vs
 int8 quantized scan vs IVF probed scan (BASELINE.json configs 4-5).
 
 Corpus is generated ON DEVICE (no host transfer): 4096 cluster centers,
 per-chunk noise — realistic locality for IVF. Ground truth = f32-accum
 exact scan over the same bf16 matrix.
 
-Usage: python bench_scale.py [--n 1000000] [--nprobe 32]
+Usage: python bench_scale.py [--n 1000000] [--nprobe 32]   (fails without a GPU)
 Prints one JSON line per method on stdout; progress on stderr.
 """
 from __future__ import annotations
@@ -279,6 +279,9 @@ def main():
                     help="with --hybrid: every (backend x batch) cell on "
                          "one corpus build")
     args = ap.parse_args()
+    from mobius_rag_tpu.utils.device import measurement_device
+
+    log(f"device={measurement_device()}")
     if args.packed:
         packed_mode(args)
         return
@@ -294,7 +297,7 @@ def main():
     from mobius_rag_tpu.ops.topk import cosine_topk_xla
 
     n, d, k, b = args.n, args.d, args.k, args.batch
-    log(f"backend={jax.default_backend()}; generating {n}x{d} clustered corpus on device")
+    log(f"generating {n}x{d} clustered corpus on device")
 
     key = jax.random.PRNGKey(0)
     kc, ka, kn, kq = jax.random.split(key, 4)

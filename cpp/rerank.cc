@@ -9,8 +9,7 @@
 //     rows = hv[idx].astype(f32) * hs[idx][..., None]
 //     cos  = einsum("bwd,bd->bw", rows, qv)
 // materialises a [B, W, D] float32 temporary (three passes over ~2-5 MB
-// per batch) — measurable on the single weak vCPU that fronts the TPU in
-// production pods. This kernel streams each int8 row once, fusing the
+// per batch) on the serving host's CPU. This kernel streams each int8 row once, fusing the
 // dequant scale into the accumulated dot product, no temporaries.
 //
 // The reference has no analogue: its second stage is pgvector's own

@@ -1,4 +1,4 @@
-"""Fine-tune the on-TPU encoder on YOUR corpus and re-embed.
+"""Fine-tune the on-device encoder on YOUR corpus and re-embed.
 
 The full native loop the reference cannot do (its embeddings are rented
 from an API): mine ICT pairs from the published corpus → contrastive

@@ -4,7 +4,7 @@
 
 Uses the deterministic hash encoder so it runs anywhere; swap
 `hash_embed` for `EncoderModel()` (or `get_embedding_provider().embed`)
-to encode on the TPU.
+to encode on the GPU.
 """
 from mobius_rag_tpu.api.server import AppContext
 from mobius_rag_tpu.query.agent import AgentRequest

@@ -773,7 +773,7 @@ def register_extended_routes(r, ctx) -> None:  # noqa: C901 — route table
         return _json(live, 200 if live["ok"] else 503)
 
     async def admin_profile(request):
-        """Per-stage device profiling (SURVEY §5.1 TPU equivalent of the
+        """Per-stage device profiling (SURVEY §5.1 device equivalent of the
         reference's per-arm timings): POST {queries?, k?, iters?, trace?}.
         Runs the staged sub-program timings (profile_engine) and folds
         the result into search_events; trace=true additionally captures

@@ -7,7 +7,7 @@ service (corpus_search_agent.py:3808-3960). This framework keeps those
 as injection points (strategies c/d/s and synthesis take a client) with
 deterministic offline stubs as defaults — the same role the reference's
 mocked providers play in its tests (SURVEY §4 tier 2) — so the whole
-agent runs hermetically on a zero-egress TPU pod and picks up real
+agent runs hermetically on a zero-egress host and picks up real
 backends in deployment by swapping the client object.
 """
 from __future__ import annotations

@@ -3,7 +3,7 @@ reference's app/config.py (env vars → module constants, hosted-mode
 fail-fast validation that collects all problems at once;
 reference: app/config.py:24-232).
 
-TPU-native differences: config carries device/mesh/dtype/index-layout
+Differences: config carries device/mesh/dtype/index-layout
 knobs instead of DB pool sizes, and validation checks shape alignment
 (embedding dim, tile sizes, tag-word counts) instead of DSNs.
 """
@@ -42,7 +42,7 @@ class Config:
     # ---- index layout -------------------------------------------------
     # Embedding dimension. The reference pins 1536 (Vertex
     # gemini-embedding-001; app/services/embedding_provider.py:95-100).
-    # 1536 = 12 * 128 → MXU-lane aligned.
+    # Must be a multiple of 128 (validate()).
     embed_dim: int = _env_int("MRAG_EMBED_DIM", 1536)
     # Initial device-array capacity (rows). Grows by doubling.
     initial_capacity: int = _env_int("MRAG_INITIAL_CAPACITY", 8192)
@@ -90,9 +90,8 @@ class Config:
     # cosine re-rank of the over-fetched candidates.
     pq_m: int = _env_int("MRAG_PQ_M", 96)
     # "proj" backend: int8 PCA-projected residual codes (proj_p bytes/
-    # row) scored as dense MXU matmuls — the TPU-native replacement for
-    # LUT-PQ ADC, whose per-element gathers XLA lowers serially on TPU
-    # (measured 55x slower at equal bytes/row; see ops/proj.py).
+    # row) scored as dense int8 matmuls instead of LUT-PQ ADC's
+    # per-element table gathers (see ops/proj.py).
     proj_p: int = _env_int("MRAG_PROJ_P", 256)
     # Host-residency funnel width: the vector arm's top-W candidate list
     # handed (with its rerank signals) to the exact host re-rank, on top
@@ -102,37 +101,28 @@ class Config:
     # design buys recall back (0 = auto: max(512, k·over_fetch)).
     host_funnel: int = _env_int("MRAG_HOST_FUNNEL", 0)
     # Approximate final top-k inside the probed scans (proj backend):
-    # per-element recall target for jax.lax.approx_max_k, the TPU-native
-    # partial-reduction top-k. Candidate selection feeding a downstream
-    # exact re-rank (the host funnel / signal-gather re-score) tolerates
-    # sub-1.0 targets by construction. 0 = exact lax.top_k. Default OFF
-    # — measured, not assumed (r4 2M strict sweep, /tmp sweep logs →
-    # ROUND4_NOTES): through the funnel + exact-host-re-rank stack,
-    # approx_max_k at recall_target 0.95 cost 0.96→0.83 recall@10 and
-    # even 0.99 cost 0.96→0.85 — the true top-k rows rank DEEP in the
-    # approximate (projected-residual) ordering, exactly the boundary
-    # region where approx_max_k's per-element retention is weakest, so
-    # the funnel loses them unrecoverably. The ~70 ms/batch the exact
-    # top-k costs (session-12 diag) buys ~0.13 recall; keep exact.
-    # merged_topk still backend-gates the op for anyone opting in:
-    # CPU (the parity mesh) always takes exact lax.top_k.
+    # per-element recall target for jax.lax.approx_max_k. 0 = exact
+    # lax.top_k, the default. XLA's CPU and GPU backends lower
+    # approx_max_k to an exact top-k, so on them any value returns the
+    # exact result; the option is queued for removal (ROADMAP 3.2).
     ann_approx_topk: float = _env_float("MRAG_ANN_APPROX_TOPK", 0.0)
     # Streaming-insert headroom for the proj backend: EMPTY always-probed
     # slabs appended at build so published rows encode into free slots
-    # instead of re-running the k-means build (a full rebuild at 10M is
-    # ~18 min of host k-means whose buffers OOM under serving; the
-    # reference's pgvector HNSW inserts incrementally — republish is its
-    # steady state, publish.py:27-481). Headroom = slabs × cluster pad;
-    # exhausting it falls back to a full rebuild. 0 disables.
+    # instead of re-running the k-means build (a full rebuild re-runs
+    # host k-means over every row, with buffers that compete with
+    # serving; the reference's pgvector HNSW inserts incrementally —
+    # republish is its steady state, publish.py:27-481). Headroom =
+    # slabs × cluster pad; exhausting it falls back to a full rebuild.
+    # 0 disables.
     ann_reserve_slabs: int = _env_int("MRAG_ANN_RESERVE_SLABS", 2)
     # Filter-gate evaluation: "dense" materializes the [B, C]
     # eligibility masks + penalty (the ≤~1M default), "local" evaluates
-    # the gate candidate-locally — inside the Pallas probed scan for
+    # the gate candidate-locally — inside the probed scan for
     # the vector arm, on the postings union for the lexical arm, and
     # over per-tag inverted postings for the d-tag arm (query/gating.py;
     # requires the proj backend). "auto" = local exactly in the
-    # host-residency proj regime, where the dense masks cost ~1.2 s/
-    # batch32 at 10M rows (DIAG_sig_stages_10000000.json).
+    # host-residency proj regime, where the dense masks are [B, C]
+    # buffers over every row of the corpus.
     gating: str = _env_str("MRAG_GATING", "auto")
     # Candidate-local d-tag arm: per-tag postings width (top-Pd members
     # by authority; a tag with more live members than this serves its
@@ -156,14 +146,15 @@ class Config:
     # Pipelined-search fetch groups: the stacked device→host result
     # fetch splits into this many transfers so host assembly of group g
     # overlaps the device execution + transfer of group g+1 (1 = single
-    # stacked fetch, the round-3 behavior).
+    # stacked fetch).
     pipeline_fetch_groups: int = _env_int("MRAG_PIPELINE_FETCH_GROUPS", 2)
     # Pipelined-search batch merging: fuse up to this many SAME-SIZE
     # batches into one wider program invocation (1 put + 1 dispatch +
-    # 1 fetch replace N of each — per-call overhead through the
-    # transport is the 1M bottleneck, and one [N·B,D] matmul tiles the
-    # MXU better than N narrow ones). Scores are per-query, so results
-    # are bit-identical to the unmerged path (pinned by test). 1 = off.
+    # 1 fetch replace N of each, and one [N·B, D] matmul instead of N
+    # narrow ones). Whether the per-call overhead it saves matters on a
+    # GPU host is not measured (ROADMAP 3.1). Scores are per-query, so
+    # results are bit-identical to the unmerged path (pinned by test).
+    # 1 = off.
     pipeline_merge: int = _env_int("MRAG_PIPELINE_MERGE", 1)
     # Vector-arm minimum cosine similarity post-filter.
     min_similarity: float = _env_float("MRAG_MIN_SIMILARITY", 0.0)
@@ -216,7 +207,7 @@ class Config:
         if self.embed_dim % 128 != 0:
             problems.append(
                 f"MRAG_EMBED_DIM={self.embed_dim} must be a multiple of 128 "
-                "(TPU lane width)"
+                "(layout rule of the packed index tables)"
             )
         if self.vector_dtype not in ("float32", "bfloat16", "int8"):
             problems.append(

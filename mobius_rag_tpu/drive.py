@@ -152,7 +152,7 @@ def oauth_device_flow(*, client_id: str | None = None,
                       sleep: Any = time.sleep,
                       timeout_s: float = 30.0,
                       max_wait_s: float = 600.0) -> dict[str, str]:
-    """OAuth2 *device flow* bootstrap (RFC 8628) — how a headless TPU VM
+    """OAuth2 *device flow* bootstrap (RFC 8628) — how a headless server
     obtains the refresh token HTTPDrive's refresh-grant transport uses
     (reference drive_sync.py runs the equivalent interactive consent in
     the browser session of main.py:6365's /drive/auth flow).

@@ -23,7 +23,7 @@ from mobius_rag_tpu.clients import LLMClient
 from mobius_rag_tpu.eval_harness.judge import _fact_present, _llm_verdicts, _overlap_verdicts
 from mobius_rag_tpu.query.text import tokenize
 
-FACT_CHECKER_VERSION = "tpu-v1"
+FACT_CHECKER_VERSION = "mrag-v1"
 FACT_CHECKER_SIGMA = 0.2
 
 

@@ -140,7 +140,7 @@ def run_eval(
         "lexicon_revision": lexicon_revision(agent),
         "bank_sha": bank.sha,
         "forced_mode": forced_mode,
-        "fact_checker_version": "tpu-v1",
+        "fact_checker_version": "mrag-v1",
     }
     run_id = db.insert_run(bank, fingerprint)
 

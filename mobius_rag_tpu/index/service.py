@@ -1,7 +1,7 @@
 """Durable index serving: remote-publish RPC instead of the snapshot hop.
 
-Round 1 moved worker publishes to the serving process via snapshot +
-reload (ROUND1_NOTES #5). This module kills that hop: the serving
+Worker publishes used to reach the serving process via snapshot +
+reload. This module kills that hop: the serving
 process (api.server) exposes /internal/* index endpoints, and
 :class:`RemoteIndexClient` is a ChunkStore-shaped client the embedding
 worker plugs in unchanged (it only uses embedded_source_ids /

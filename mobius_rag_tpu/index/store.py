@@ -1,4 +1,4 @@
-"""Device-resident chunk index — the TPU-native replacement for the
+"""Device-resident chunk index — the on-device replacement for the
 reference's ``rag_published_embeddings`` Postgres table
 (reference: app/models.py:242-280) and its pgvector/GIN indexes.
 
@@ -716,8 +716,7 @@ class ChunkStore:
             # host residency: quantized rows land in host RAM; the device
             # index keeps NO dense payload. `vectors` may be host numpy
             # (f32/int8) or a device array (quantize on device, stream
-            # down blockwise — device→host for int8 is the cheap
-            # direction per-byte).
+            # the int8 rows down blockwise — a quarter of the f32 bytes).
             from mobius_rag_tpu.ops.quant import _quantize_block
 
             hv = np.zeros((cap, cfg.embed_dim), np.int8)
@@ -725,10 +724,11 @@ class ChunkStore:
             if isinstance(vectors, jax.Array):
                 blk = 250_000
                 for off in range(0, n, blk):
+                    hi = min(off + blk, n)
                     q8, qs = _quantize_block(
-                        vectors[off:off + blk].astype(jnp.float32))
-                    hv[off:off + blk] = np.asarray(jax.device_get(q8))
-                    hs[off:off + blk] = np.asarray(jax.device_get(qs))
+                        vectors[off:hi].astype(jnp.float32))
+                    hv[off:hi] = np.asarray(jax.device_get(q8))
+                    hs[off:hi] = np.asarray(jax.device_get(qs))
             elif np.asarray(vectors).dtype == np.int8:
                 hv[:n] = np.asarray(vectors)[:n]
             else:
@@ -746,9 +746,9 @@ class ChunkStore:
             vec_arr = jnp.zeros((cap, cfg.embed_dim), jnp.int8).at[:n].set(qv[:n])
             scales_arr = scales_arr.at[:n].set(qs[:n])
         elif isinstance(vectors, jax.Array):
-            # DEVICE-resident ingest fast path: vectors produced on-chip
-            # (the TPU encoder's own output) stay on device — no
-            # device→host→device round-trip through the interconnect.
+            # DEVICE-resident ingest fast path: vectors produced on the
+            # device (the encoder's own output) stay there — no
+            # device→host→device round-trip.
             # Pad + cast on device; the transient is 2x the array, not
             # the 5x of the zeros+at[].set form.
             vec_arr = jnp.zeros((cap, cfg.embed_dim), vec_dtype)
@@ -916,7 +916,7 @@ class ChunkStore:
     # -- snapshot / resume ---------------------------------------------------
 
     def snapshot(self, path: str) -> None:
-        """Durable checkpoint: device arrays + host record map. The TPU
+        """Durable checkpoint: device arrays + host record map. The device
         analogue of the reference's per-batch-commit durability
         (embedding_worker.py:215-266)."""
         os.makedirs(path, exist_ok=True)

@@ -6,9 +6,9 @@ idles writers before the final eval, `scale("down")` reverts — all
 best-effort, never raising to the orchestrator.
 
 The reference's levers are Cloud SQL tiers + Cloud Run instance counts.
-On a TPU pod the deploy substrate is Kubernetes (deploy/k8s-tpu.yaml):
-the equivalent lever is the Deployment *scale subresource* — pinning
-worker replicas, since our workers are self-polling queue claimants
+On a Kubernetes deploy substrate (a GPU manifest is queued in
+ROADMAP.md) the equivalent lever is the Deployment *scale
+subresource* — pinning worker replicas, since our workers are self-polling queue claimants
 exactly like the reference's (parallelism == replica count; HTTP
 autoscaling never fires for them, nightly_infra.py:39-45).
 

@@ -1,6 +1,6 @@
 """Durable host-side job queue: sqlite with lease-based claims.
 
-The TPU-native stand-in for the reference's Postgres job tables +
+The host-side stand-in for the reference's Postgres job tables +
 ``FOR UPDATE SKIP LOCKED`` claims (chunking_jobs / embedding_jobs;
 embedding_worker.py:393-399), keeping the same safety patterns
 (SURVEY §5.2/§5.3):

@@ -7,7 +7,7 @@ Reference parity:
   finalize by enqueueing the embedding job.
 - EmbeddingWorker ≙ app/embedding_worker.py: claim an embedding job,
   diff already-embedded source_ids (incremental resume, :187-203),
-  encode the missing tail in batches ON TPU (batch 128 vs the
+  encode the missing tail in batches on the device (batch 128 vs the
   reference's 50-with-1-per-request Vertex ceiling), featurize, publish
   into the ChunkStore (DELETE+INSERT per document), emit progress
   events per batch.

@@ -4,7 +4,7 @@ The reference has no model weights to checkpoint (embeddings are
 rented); here the encoder is a first-class artifact: params + config
 saved together so a snapshot of the INDEX (built with encoder X) can
 always be paired with encoder X at serving time — embedding-space drift
-between encoder versions is the TPU build's analogue of the reference's
+between encoder versions is this build's analogue of the reference's
 rag↔chat drift class (SURVEY §5.5)."""
 from __future__ import annotations
 

@@ -1,11 +1,11 @@
-"""Cross-encoder reranker — the second on-TPU model family.
+"""Cross-encoder reranker — the second on-device model family.
 
 The reference's reranker is a fixed linear blend of six signals
 (corpus_search.py:1909); this model family goes beyond parity: a
 transformer that reads [CLS] query [SEP] chunk jointly and scores
 relevance from the CLS state. Applied as an optional final stage over
 the hybrid pipeline's top-k (cheap: k ≈ 10-40 pairs per query, batched
-on the MXU), trained on the same ICT pairs the bi-encoder mines.
+on the device), trained on the same ICT pairs the bi-encoder mines.
 
 Reuses the encoder's transformer blocks/params layout (models/encoder.py)
 with a scalar score head instead of the projection.

@@ -4,7 +4,7 @@ uses, then hashed into a fixed id space (ids 2..V-1; 0=pad, 1=CLS).
 
 Rationale: the reference delegates tokenization to external embedding
 APIs (app/services/embedding_provider.py); a self-contained tokenizer
-keeps the on-TPU encoder dependency-free and deterministic. Swap in a
+keeps the on-device encoder dependency-free and deterministic. Swap in a
 learned subword vocab by implementing the same (encode_batch) interface.
 """
 from __future__ import annotations

@@ -1,1 +1,1 @@
-from mobius_rag_tpu.ops.topk import cosine_topk, cosine_topk_pallas, cosine_topk_xla  # noqa: F401
+from mobius_rag_tpu.ops.topk import cosine_topk_blocked, cosine_topk_xla  # noqa: F401

@@ -1,19 +1,18 @@
-"""Projected-residual ANN codes: the MXU-native compression for the
-≥4M-rows/chip regime (BASELINE.md build-target config 5).
+"""Projected-residual ANN codes: the int8-matmul compression for the
+≥4M-rows-per-card regime (BASELINE.md build-target config 5).
 
 Why this exists next to ops/pq.py: classic LUT-PQ (ADC) scoring is a
-per-element table gather — great on CPUs with pshufb, pathological
-under XLA on TPU, which lowers gathers serially (measured 1.9 s/batch32
-at 1M rows for m=96 codes vs 34 ms for this module at the same
-bytes/row). The TPU-first alternative spends the code bytes on a dense
-low-rank view instead of subvector codebooks:
+per-element table gather per code byte. This module spends the code
+bytes on a dense low-rank view instead of subvector codebooks, so
+scoring is a matmul rather than a gather:
 
     code(x)  = int8( P (x − centroid(x)) )          # P: [p, D] PCA rows
     score(q) ≈ q·centroid + (Pq) · dequant(code)    # one int8 matmul
 
 - candidate scoring per probed cluster is a [pad, p] × [p] int8
-  dot_general — exactly the MXU shape ivf_search_packed runs at wire
-  speed, 6-16× less HBM traffic than full-D int8;
+  dot_general with int32 accumulation, the same shape
+  ivf_search_packed runs, with 6-16× less memory traffic than full-D
+  int8;
 - the projection is the top-p principal subspace of the coarse
   residuals, so the discarded dimensions are the lowest-variance ones
   the corpus has (covariance accumulated blockwise on device, eigh on
@@ -22,14 +21,12 @@ low-rank view instead of subvector codebooks:
   (SearchEngine._host_rerank) over the top-W candidates, same two-stage
   shape as IVFADC — see MRAG_HOST_FUNNEL.
 
-Measured at 1M×1536 (graded near-duplicate trained-encoder corpus,
-nprobe 64, batch 32): funnel recall@10-in-top-1024 0.9906 at
-78 ms/batch vs LUT-PQ m=96's 0.9656 at 1909 ms/batch
-(scripts/diag_pq_funnel.py / diag_proj_funnel.py).
+Whether proj still beats LUT-PQ on a GPU, whose gathers are not
+serialized, is not measured yet (ROADMAP 3.2).
 
 Reference parity anchor: this plays pgvector's HNSW role
 (vector_store.py:274-287) at corpus scales where neither a dense scan
-nor a graph index fits the chip.
+nor a graph index fits the card.
 """
 from __future__ import annotations
 
@@ -41,27 +38,10 @@ import numpy as np
 
 from mobius_rag_tpu.ops.topk import NEG_INF, merged_topk
 
-
-def _scan_impl() -> str:
-    """Probed-scan implementation: "xla" (default) | "pallas"
-    (ops/pallas_proj.py block-DMA kernel). Read at TRACE time — set
-    MRAG_PROJ_SCAN before the first search; an in-process flip after
-    tracing does not retrace (tests exercise the kernel directly)."""
-    import os
-
-    return os.getenv("MRAG_PROJ_SCAN", "xla").strip().lower()
-
-
-def _gated_impl() -> str:
-    """Gated-scan implementation: "auto" (pallas kernel on TPU, XLA
-    block scan elsewhere) | "pallas" | "xla". Trace-time, like
-    _scan_impl."""
-    import os
-
-    mode = os.getenv("MRAG_PROJ_GATED_SCAN", "auto").strip().lower()
-    if mode == "auto":
-        return "pallas" if jax.default_backend() == "tpu" else "xla"
-    return mode
+# The query-side dots (probe choice, int8 query code) are [B, D] small;
+# full float32 keeps them off TF32, so a GPU probes the same clusters
+# and quantizes the same query code as the CPU reference.
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @jax.tree_util.register_pytree_node_class
@@ -118,10 +98,10 @@ class PackedProj:
         (zero centroid, valid 0) as streaming-insert headroom: the
         engine's incremental path (SearchEngine._try_ann_incremental)
         encodes published rows into these slots instead of re-running
-        the k-means build — a full rebuild at 10M is ~18 min of host
-        k-means whose buffers OOM under serving (the reference's
-        pgvector HNSW likewise inserts incrementally; republish is its
-        steady state, publish.py:27-481). Host mirrors of the slot
+        the k-means build — a full rebuild re-runs host k-means over
+        every row, with buffers that compete with serving (the
+        reference's pgvector HNSW likewise inserts incrementally;
+        republish is its steady state, publish.py:27-481). Host mirrors of the slot
         layout (``build_rowids``/``build_valid``, numpy) ride on the
         instance for the engine's row→slot map; they are NOT pytree
         children and vanish across tree ops — only the build-time
@@ -316,6 +296,40 @@ def stack_shard_proj(shards: "list[PackedProj]") -> PackedProj:
                       nlist=nlist, pad=pad, base_nlist=base)
 
 
+def query_side(pp: PackedProj, q32: jnp.ndarray, nprobe: int):
+    """Per-query work shared by both probed scans: centroid scores
+    [B, nlist], probed cells [B, P] (the top-``nprobe`` base cells, then
+    every synthetic spill/reserve slab), and the int8 query code with
+    its dequant scale (symmetric quantization of the projected query,
+    the same shape as ivf_search_packed: int8×int8 → int32, rescale
+    after)."""
+    b = q32.shape[0]
+    cscores = jnp.dot(q32, pp.centroids.T, precision=_HIGHEST,
+                      preferred_element_type=jnp.float32)  # [B, nlist]
+    p_eff = min(nprobe, pp.base_nlist)
+    _, probe = jax.lax.top_k(cscores[:, : pp.base_nlist], p_eff)
+    n_spill = pp.nlist - pp.base_nlist
+    if n_spill:
+        spill_cells = jnp.broadcast_to(
+            jnp.arange(pp.base_nlist, pp.nlist, dtype=probe.dtype)[None, :],
+            (b, n_spill))
+        probe = jnp.concatenate([probe, spill_cells], axis=1)
+    qp = jnp.dot(q32, pp.proj.T, precision=_HIGHEST)  # [B, p]
+    qmax = jnp.maximum(jnp.max(jnp.abs(qp), axis=1), 1e-9)
+    q_scale = qmax / 127.0
+    q8 = jnp.round(qp / q_scale[:, None]).astype(jnp.int8)
+    return cscores, probe, q8, q_scale
+
+
+def block_dots(blk: jnp.ndarray, q8: jnp.ndarray) -> jnp.ndarray:
+    """Raw scores of one probed block per query: blk [B, pad, p] int8 ·
+    q8 [B, p] int8 → [B, pad] int32. Integer-exact: |dot| ≤ p·128² stays
+    far inside int32."""
+    return jax.lax.dot_general(
+        blk, q8, dimension_numbers=(((2,), (1,)), ((0,), (0,))),
+        preferred_element_type=jnp.int32)
+
+
 @functools.partial(jax.jit, static_argnames=("k", "nprobe", "approx"))
 def proj_search_packed(pp: PackedProj, queries: jnp.ndarray,
                        penalty: jnp.ndarray, k: int, nprobe: int,
@@ -327,9 +341,10 @@ def proj_search_packed(pp: PackedProj, queries: jnp.ndarray,
 
     Scans over probe RANK with the whole query batch per step: step j
     gathers every query's j-th cluster block [B, pad, p] and scores it
-    as one batched int8 dot_general — nprobe MXU steps, not B·nprobe
-    scalar micro-ops. Synthetic spill slabs (cells ≥ base_nlist) are
-    always probed. Probe scores accumulate as scan outputs and the
+    as one batched int8 dot_general — nprobe batched matmul steps, not
+    B·nprobe scalar micro-ops. The raw int8 dots accumulate in int32 and
+    are exact. Synthetic spill slabs (cells ≥ base_nlist) are always
+    probed. Probe scores accumulate as scan outputs and the
     top-k runs ONCE at the end (ops.topk.merged_topk — optionally
     approx_max_k via ``approx``); a per-step running top-k was
     sort-bound at funnel widths."""
@@ -338,55 +353,14 @@ def proj_search_packed(pp: PackedProj, queries: jnp.ndarray,
     if penalty.ndim == 1:
         penalty = jnp.broadcast_to(penalty[None, :], (b, penalty.shape[0]))
 
-    cscores = jnp.dot(q32, pp.centroids.T,
-                      preferred_element_type=jnp.float32)  # [B, nlist]
-    p_eff = min(nprobe, pp.base_nlist)
-    _, probe = jax.lax.top_k(cscores[:, : pp.base_nlist], p_eff)
-    n_spill = pp.nlist - pp.base_nlist
-    if n_spill:
-        spill_cells = jnp.broadcast_to(
-            jnp.arange(pp.base_nlist, pp.nlist, dtype=probe.dtype)[None, :],
-            (b, n_spill))
-        probe = jnp.concatenate([probe, spill_cells], axis=1)
-
-    # int8 query projection (the same symmetric-quantization shape as
-    # ivf_search_packed: int8×int8 on the MXU, rescale after)
-    qp = q32 @ pp.proj.T  # [B, p]
-    qmax = jnp.maximum(jnp.max(jnp.abs(qp), axis=1), 1e-9)
-    q_scale = qmax / 127.0
-    q8 = jnp.round(qp / q_scale[:, None]).astype(jnp.int8)
-
-    if _scan_impl() == "pallas":
-        # Pallas cluster-block scan (ops/pallas_proj.py): pipelined
-        # block DMA + MXU dot replaces the gather-bound jnp.take path
-        # (1950 ms/batch32 at 10M, DIAG_sig_stages_10000000). The raw
-        # dots are integer-exact (see module docstring); scaling,
-        # centroid, penalty, validity stay here as fused elementwise +
-        # 4-byte-per-slot gathers.
-        from mobius_rag_tpu.ops.pallas_proj import proj_blocks_pallas
-
-        raw = proj_blocks_pallas(probe, pp.codes, q8)  # [B, P, pad]
-        sc = jnp.take(pp.scales, probe, axis=0)
-        ok = jnp.take(pp.valid, probe, axis=0)
-        rid = jnp.take(pp.rowids, probe, axis=0)
-        cs = jnp.take_along_axis(cscores, probe, axis=1)
-        pen = jnp.take_along_axis(
-            penalty, rid.reshape(b, -1), axis=1).reshape(rid.shape)
-        s = (raw * sc * q_scale[:, None, None] + cs[..., None] + pen
-             + (1.0 - ok) * NEG_INF)
-        vals = s.reshape(b, -1)
-        ids = rid.reshape(b, -1)
-        nv, ni = merged_topk(vals, ids, k, approx)
-        return nv, ni.astype(jnp.int32)
+    cscores, probe, q8, q_scale = query_side(pp, q32, nprobe)
 
     def scan_probe(tok, pc):
         blk = jnp.take(pp.codes, pc, axis=0)  # [B, pad, p] int8
         sc = jnp.take(pp.scales, pc, axis=0)  # [B, pad]
         ok = jnp.take(pp.valid, pc, axis=0)
         rid = jnp.take(pp.rowids, pc, axis=0)
-        acc = jax.lax.dot_general(
-            blk, q8, dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.int32).astype(jnp.float32)  # [B, pad]
+        acc = block_dots(blk, q8).astype(jnp.float32)  # [B, pad]
         s = acc * sc * q_scale[:, None] \
             + jnp.take_along_axis(cscores, pc[:, None], axis=1) \
             + jnp.take_along_axis(penalty, rid, axis=1) \
@@ -407,37 +381,30 @@ def proj_search_packed(pp: PackedProj, queries: jnp.ndarray,
 # ---------------------------------------------------------------------------
 # Candidate-local gating: the [B, C]-free config-5 query program
 # ---------------------------------------------------------------------------
-# Round-4 diagnosis (DIAG_sig_stages_10000000.json): after the raw-dot
-# Pallas kernel, the 10M program's remaining seconds were the
-# [B, C]-sized filter gate (strict/relaxed/open masks + penalty over
-# 10M rows) and its scattered per-candidate gather inside the scan.
-# ProjGate packs every per-row input of the filter gate
-# (query/engine.py filter_masks semantics; reference SQL WHERE at
+# At 10M rows the dense filter gate (strict/relaxed/open masks +
+# penalty, each [B, C]) and its scattered per-candidate gather inside
+# the scan are corpus-sized work per batch. ProjGate packs every
+# per-row input of the filter gate (query/engine.py filter_masks
+# semantics; reference SQL WHERE at
 # corpus_search.py:1427-1555) into the SAME cluster-contiguous layout
 # as the codes, so the probed scan evaluates eligibility on the blocks
 # it already streams — no corpus-sized per-query buffer exists at all.
 
-def gate_widths(tw: int) -> tuple[int, int]:
-    """(full word count W, metadata+j prefix W01) for the slot-word
-    array — both rounded to multiples of 8 so the sublane axis never
-    pads. Word-row layout (see ProjGate):
+def gate_width(tw: int) -> int:
+    """Word count W of the slot-word array, rounded up to a multiple of
+    8 with zero words. Word-row layout (see ProjGate):
       0 payer|state · 1 program|flags · 2 scale(f32 bits) · 3 rowid ·
       4..4+tw j · 4+tw..4+2tw d · 4+2tw..4+3tw p · zero-padding."""
-    base = 4 + 3 * tw
-    w = -(-base // 8) * 8
-    w01 = min(w, -(-(4 + tw) // 8) * 8)
-    return w, w01
+    return -(-(4 + 3 * tw) // 8) * 8
 
 
 class ProjGate:
     """Cluster-layout eligibility pack for a PackedProj table:
     ONE word-major array ``words [nlist, W, pad]`` i32 (layout in
-    :func:`gate_widths`). Word-major matters: a trailing small word
-    axis tiles as the 128-lane dimension and pads 16-64× — the first
-    10M compile OOMed HBM at 35 GB purely from that padding; with pad
-    as the lane axis and W a multiple of 8 sublanes there is ZERO
-    layout padding, and the dequant scale + rowid ride the same DMA
-    as the gate words (no separate per-slot streams)."""
+    :func:`gate_width`). Word-major keeps the long pad axis minor, so
+    one probed block is W contiguous rows of pad words, and the dequant
+    scale + rowid ride the same gather as the gate words (no separate
+    per-slot streams)."""
 
     def __init__(self, words, tw: int):
         self.words, self.tw = words, int(tw)
@@ -472,7 +439,7 @@ class ProjGate:
     def slot_words(packed, scales, rowids, tw: int) -> jnp.ndarray:
         """[n, W] slot words from pack_rows output + per-slot dequant
         scales (f32, bitcast into word 2) + row ids (word 3)."""
-        w, _ = gate_widths(tw)
+        w = gate_width(tw)
         n = packed.shape[0]
         cols = [packed[:, :2],
                 jax.lax.bitcast_convert_type(
@@ -583,7 +550,7 @@ def meta_ok_from_words(meta_blk, qmeta):
 
 def _gate_blocks_xla(meta_blk, jw_blk, dpw_blk, qmeta, qbits, tw: int,
                      tag_level: int):
-    """XLA mirror of the Pallas kernel's gate math over gathered blocks
+    """The filter gate over gathered blocks
     meta_blk [B, S, 2] (+ jw [B, S, TW], dpw [B, S, 2TW]) → bool [B, S].
     Shared by the CPU/parity path and by the candidate-local lexical/
     d-tag arms (query/gating.py) so every consumer computes the exact
@@ -622,42 +589,14 @@ def proj_search_gated(pp: PackedProj, gate, queries: jnp.ndarray,
     evaluated CANDIDATE-LOCALLY on the streamed cluster blocks — the
     [B, C]-free form of proj_search_packed. ``gate`` is ProjGate.words
     [nlist, W, pad] (word-major; carries metadata, dequant scale and
-    rowid per slot — see gate_widths). `qmeta`/`qbits` from
+    rowid per slot — see gate_width). `qmeta`/`qbits` from
     encode_qmeta (strict_ok already folded in). `tag_level` statically
-    selects how many gate word rows the scan reads: ≤1 = the
-    metadata+j prefix, 2 = everything."""
+    selects which tag words the gate reads: 0 = metadata only, 1 = +j,
+    2 = +d/p."""
     g_words = gate
     b = queries.shape[0]
     q32 = queries.astype(jnp.float32)
-    cscores = jnp.dot(q32, pp.centroids.T,
-                      preferred_element_type=jnp.float32)  # [B, nlist]
-    p_eff = min(nprobe, pp.base_nlist)
-    _, probe = jax.lax.top_k(cscores[:, : pp.base_nlist], p_eff)
-    n_spill = pp.nlist - pp.base_nlist
-    if n_spill:
-        spill_cells = jnp.broadcast_to(
-            jnp.arange(pp.base_nlist, pp.nlist, dtype=probe.dtype)[None, :],
-            (b, n_spill))
-        probe = jnp.concatenate([probe, spill_cells], axis=1)
-
-    qp = q32 @ pp.proj.T  # [B, p]
-    qmax = jnp.maximum(jnp.max(jnp.abs(qp), axis=1), 1e-9)
-    q_scale = qmax / 127.0
-    q8 = jnp.round(qp / q_scale[:, None]).astype(jnp.int8)
-
-    if _gated_impl() == "pallas":
-        from mobius_rag_tpu.ops.pallas_proj import proj_gated_blocks_pallas
-
-        gated, rid = proj_gated_blocks_pallas(
-            probe, qmeta, qbits, pp.codes, g_words, q8,
-            tw=tw, tag_level=tag_level)
-        cs = jnp.take_along_axis(cscores, probe, axis=1)  # [B, P]
-        s = jnp.where(gated > NEG_INF / 2,
-                      gated * q_scale[:, None, None] + cs[..., None],
-                      NEG_INF)
-        nv, ni = merged_topk(s.reshape(b, -1), rid.reshape(b, -1), k,
-                             approx)
-        return nv, ni.astype(jnp.int32)
+    cscores, probe, q8, q_scale = query_side(pp, q32, nprobe)
 
     def scan_probe(tok, pc):
         blk = jnp.take(pp.codes, pc, axis=0)  # [B, pad, p] int8
@@ -669,9 +608,7 @@ def proj_search_gated(pp: PackedProj, gate, queries: jnp.ndarray,
                   if tag_level >= 1 else None)
         dpw_blk = (jnp.moveaxis(wblk[:, 4 + tw:4 + 3 * tw], 1, -1)
                    if tag_level >= 2 else None)
-        acc = jax.lax.dot_general(
-            blk, q8, dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.int32).astype(jnp.float32)  # [B, pad]
+        acc = block_dots(blk, q8).astype(jnp.float32)  # [B, pad]
         ok = _gate_blocks_xla(meta_blk, jw_blk, dpw_blk, qmeta, qbits,
                               tw, tag_level)
         gated = jnp.where(ok, acc * sc, NEG_INF)

@@ -3,12 +3,12 @@
 The 10M-chunk config's memory lever (BASELINE.json config 5): fp32
 embeddings are 4 bytes/dim; int8 cuts HBM residency and scan bandwidth
 4× while recall@10 stays ≥0.99 on L2-normalized embeddings (validated
-in tests/test_quant.py and the scale bench). The MXU multiplies int8
-natively, accumulating in int32; the per-row scale re-enters as a cheap
+in tests/test_quant.py and the scale bench). The matmul multiplies int8
+operands accumulating in int32; the per-row scale re-enters as a cheap
 f32 epilogue multiply.
 
 The reference has no quantization anywhere (vectors live as Postgres
-JSONB + pgvector fp32); this is net-new capability the TPU build adds.
+JSONB + pgvector fp32); this is net-new capability this build adds.
 """
 from __future__ import annotations
 
@@ -29,9 +29,8 @@ def fill_cluster_packed(nlist: int, pad: int, enc, out_dtypes, out_widths,
     The previous pattern in every packed builder — scatter into a flat
     ``[n_flat_padded, w]`` buffer, then ``buf[:n_flat].reshape(nlist,
     pad, w)`` — materializes the multi-GB codes payload up to THREE
-    times at the end (original + slice copy + reshape copy): 11.5 GB
-    peak for the 3.84 GB proj codes at 10M rows, which OOMed a 16 GB
-    chip (round-3 session 8/9). Scattering cluster-aligned blocks into
+    times at the end (original + slice copy + reshape copy): three
+    times the codes payload at peak. Scattering cluster-aligned blocks into
     ``[nlist, pad, w]`` directly keeps peak HBM at ONE buffer + one
     block's transients.
 
@@ -101,8 +100,8 @@ def cosine_topk_int8(values: jnp.ndarray, scales: jnp.ndarray, queries: jnp.ndar
                      penalty: jnp.ndarray, k: int):
     """Masked top-k over an int8-quantized chunk matrix.
 
-    scores[b, n] = (q[b] · values[n]) * scales[n]  — int8×int8→int32 on
-    the MXU via an int8-quantized query (per-query scale), then two f32
+    scores[b, n] = (q[b] · values[n]) * scales[n]  — int8×int8→int32
+    via an int8-quantized query (per-query scale), then two f32
     scale multiplies in the epilogue.
     """
     qv = queries.astype(jnp.float32)

@@ -1,20 +1,18 @@
 """Masked cosine top-k over the device-resident chunk matrix.
 
-This is the TPU replacement for pgvector's ``embedding_vec <=> query
+This is the device replacement for pgvector's ``embedding_vec <=> query
 ORDER BY ... LIMIT k`` scan (reference: app/services/vector_store.py:274-287,
-app/services/corpus_search.py:1530-1541). Two implementations:
+app/services/corpus_search.py:1530-1541). Two XLA forms:
 
-- :func:`cosine_topk_xla` — plain XLA: one big MXU matmul + additive mask
-  + ``lax.top_k``. Simple, and already memory-bandwidth-bound for large N
-  (the [N, D] matrix read dominates; the [B, N] score materialization is
-  noise by comparison). Used as the numerical reference and the CPU path.
+- :func:`cosine_topk_xla` — one matmul + additive mask + ``lax.top_k``
+  over the full [B, N] score row. Memory-bound for large N (the [N, D]
+  matrix read dominates). The numerical reference the tests and the
+  recall checks compare against.
+- :func:`cosine_topk_blocked` — the same result from per-block top-k
+  under ``lax.map`` and one final merge, never materializing [B, N].
 
-- :func:`cosine_topk_pallas` — fused Pallas kernel: tiles the chunk matrix
-  over a 1-D grid, computes each [B, TILE_N] score block on the MXU,
-  applies the validity/filter penalty in-register, and folds the block
-  into a running per-query top-k held in VMEM scratch. Never materializes
-  [B, N] scores in HBM, so HBM traffic is exactly one pass over the chunk
-  matrix — speed-of-light for this op.
+Both run the dot at ``Precision.HIGHEST``: on GPUs a float32 dot at
+default precision may run in TF32, and a reference must not.
 
 Filters (tag gating, validity) arrive as an additive penalty vector
 (0 for eligible rows, -inf for gated rows) — the fused form of the
@@ -26,27 +24,12 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from mobius_rag_tpu.utils import round_up
 
 NEG_INF = -1e30
+_HIGHEST = jax.lax.Precision.HIGHEST
 
-# Tile of chunk rows processed per grid step. 512 rows × 1536 dims × 4 B
-# ≈ 3 MB VMEM — leaves room for Q, scores, and the running top-k.
-_TILE_N = 512
-# Lane padding for the top-k width inside the kernel.
-_K_PAD = 128
-
-
-def _on_tpu() -> bool:
-    return jax.default_backend() == "tpu"
-
-
-# ---------------------------------------------------------------------------
-# XLA reference path
-# ---------------------------------------------------------------------------
 
 def merged_topk(vals: jnp.ndarray, ids: jnp.ndarray, k: int,
                 approx_recall: float = 0.0):
@@ -56,14 +39,14 @@ def merged_topk(vals: jnp.ndarray, ids: jnp.ndarray, k: int,
     probe step's scores and select ONCE here, instead of carrying a
     running top-k through the scan — lax.top_k at funnel width (k=1024)
     is sort-bound, and nprobe per-step sorts dominated the config-5
-    vector arm (measured 90 ms/batch32 of the 2M device program; see
-    eval_artifacts/DIAG_host_funnel_2000000.json).
+    vector arm.
 
-    ``approx_recall`` > 0 selects jax.lax.approx_max_k on TPU — the
-    hardware-native partial-reduction top-k (per-call expected recall =
-    the target; exact everywhere else so CPU-mesh parity tests stay
-    bitwise). Candidate selection feeding a downstream exact re-rank
-    (the host funnel) tolerates this by construction."""
+    ``approx_recall`` > 0 selects ``jax.lax.approx_max_k`` with that
+    recall target. XLA's CPU and GPU backends lower it to an exact
+    top-k (its ``is_fallback`` form), so results there equal
+    ``lax.top_k``'s. Candidate selection feeding a downstream exact
+    re-rank (the host funnel) tolerates an approximate top-k by
+    construction."""
     s = vals.shape[1]
     if s < k:
         b = vals.shape[0]
@@ -71,7 +54,7 @@ def merged_topk(vals: jnp.ndarray, ids: jnp.ndarray, k: int,
             [vals, jnp.full((b, k - s), NEG_INF, vals.dtype)], axis=1)
         ids = jnp.concatenate(
             [ids, jnp.zeros((b, k - s), ids.dtype)], axis=1)
-    if approx_recall and jax.default_backend() not in ("cpu",):
+    if approx_recall:
         v, pos = jax.lax.approx_max_k(
             vals, k, recall_target=float(approx_recall))
     else:
@@ -96,146 +79,12 @@ def cosine_topk_xla(vectors: jax.Array, queries: jax.Array, penalty: jax.Array, 
     scores = jnp.dot(
         queries.astype(jnp.float32),
         vectors.astype(jnp.float32).T,
+        precision=_HIGHEST,
         preferred_element_type=jnp.float32,
     )
     scores = scores + penalty[None, :]
     vals, idx = jax.lax.top_k(scores, k)
     return vals, idx.astype(jnp.int32)
-
-
-# ---------------------------------------------------------------------------
-# Fused Pallas kernel
-# ---------------------------------------------------------------------------
-
-def _merge_topk(run_vals, run_idx, cand_vals, cand_idx, k: int):
-    """Fold candidate scores into the running top-k.
-
-    Iterative selection: k rounds of (argmax → one-hot extract → mask out).
-    All VPU-friendly ops; k is small (≤ _K_PAD) so this is cheap next to
-    the MXU block matmul that produced `cand_vals`.
-    """
-    b = run_vals.shape[0]
-    width = run_vals.shape[1] + cand_vals.shape[1]
-    vals = jnp.concatenate([run_vals, cand_vals], axis=1)
-    idx = jnp.concatenate([run_idx, cand_idx], axis=1)
-    col = jax.lax.broadcasted_iota(jnp.int32, (b, width), 1)
-
-    def body(j, carry):
-        vals_c, out_vals, out_idx = carry
-        best = jnp.argmax(vals_c, axis=1)  # [B]
-        onehot = col == best[:, None]
-        best_val = jnp.max(vals_c, axis=1)  # [B]
-        best_idx = jnp.sum(jnp.where(onehot, idx, 0), axis=1)
-        out_vals = jnp.where(
-            jax.lax.broadcasted_iota(jnp.int32, out_vals.shape, 1) == j,
-            best_val[:, None],
-            out_vals,
-        )
-        out_idx = jnp.where(
-            jax.lax.broadcasted_iota(jnp.int32, out_idx.shape, 1) == j,
-            best_idx[:, None].astype(jnp.int32),
-            out_idx,
-        )
-        vals_c = jnp.where(onehot, NEG_INF, vals_c)
-        return vals_c, out_vals, out_idx
-
-    init = (
-        vals,
-        jnp.full_like(run_vals, NEG_INF),
-        jnp.zeros_like(run_idx),
-    )
-    _, out_vals, out_idx = jax.lax.fori_loop(0, k, body, init)
-    return out_vals, out_idx
-
-
-def _topk_kernel(q_ref, v_ref, pen_ref, out_vals_ref, out_idx_ref,
-                 run_vals, run_idx, *, k: int, tile_n: int):
-    step = pl.program_id(0)
-    num_steps = pl.num_programs(0)
-
-    @pl.when(step == 0)
-    def _():
-        run_vals[:] = jnp.full_like(run_vals, NEG_INF)
-        run_idx[:] = jnp.zeros_like(run_idx)
-
-    # [B, TILE_N] block scores on the MXU.
-    scores = jax.lax.dot_general(
-        q_ref[:],
-        v_ref[:],
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )
-    scores = scores + pen_ref[0]  # [1, TILE_N] broadcast
-    base = step * tile_n
-    cand_idx = base + jax.lax.broadcasted_iota(jnp.int32, scores.shape, 1)
-
-    new_vals, new_idx = _merge_topk(run_vals[:], run_idx[:], scores, cand_idx, k)
-    run_vals[:] = new_vals
-    run_idx[:] = new_idx
-
-    @pl.when(step == num_steps - 1)
-    def _():
-        out_vals_ref[:] = run_vals[:]
-        out_idx_ref[:] = run_idx[:]
-
-
-@functools.partial(jax.jit, static_argnames=("k", "interpret"))
-def _cosine_topk_pallas(vectors, queries, penalty, k: int, interpret: bool):
-    n, d = vectors.shape
-    b = queries.shape[0]
-    k_pad = min(_K_PAD, max(8, round_up(k, 8)))
-    tile_n = _TILE_N
-    n_pad = round_up(n, tile_n)
-    b_pad = round_up(b, 8)
-
-    q = jnp.pad(queries.astype(jnp.float32), ((0, b_pad - b), (0, 0)))
-    v = jnp.pad(vectors, ((0, n_pad - n), (0, 0)))
-    pen = jnp.pad(penalty, (0, n_pad - n), constant_values=NEG_INF)
-    pen3d = pen.reshape(n_pad // tile_n, 1, tile_n)
-
-    grid = (n_pad // tile_n,)
-    out_vals, out_idx = pl.pallas_call(
-        functools.partial(_topk_kernel, k=k_pad, tile_n=tile_n),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((b_pad, d), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_n, d), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, tile_n), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((b_pad, k_pad), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((b_pad, k_pad), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((b_pad, k_pad), jnp.float32),
-            jax.ShapeDtypeStruct((b_pad, k_pad), jnp.int32),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((b_pad, k_pad), jnp.float32),
-            pltpu.VMEM((b_pad, k_pad), jnp.int32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=2 * b_pad * n_pad * d,
-            bytes_accessed=n_pad * d * vectors.dtype.itemsize + b_pad * d * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(q, v, pen3d)
-    return out_vals[:b, :k], out_idx[:b, :k]
-
-
-def cosine_topk_pallas(vectors, queries, penalty, k: int):
-    """Fused single-pass masked top-k (see module docstring).
-
-    The kernel's running merge is capped at ``_K_PAD`` candidates; beyond
-    that it would silently keep only the first ``_K_PAD`` — so reject
-    rather than return wrong shapes/results.
-    """
-    if k > _K_PAD:
-        raise ValueError(
-            f"cosine_topk_pallas supports k <= {_K_PAD} (got k={k}); "
-            "use cosine_topk_xla for wider fetches")
-    return _cosine_topk_pallas(vectors, queries, penalty, k, interpret=not _on_tpu())
 
 
 @functools.partial(jax.jit, static_argnames=("k", "block"))
@@ -244,12 +93,10 @@ def cosine_topk_blocked(vectors: jax.Array, queries: jax.Array,
     """Hierarchical two-phase masked top-k: per-block matmul + per-block
     top-k under lax.map, then one final merge over [B, nb·k].
 
-    Rationale: `lax.top_k` over the full [B, N] score row is the hidden
-    cost of cosine_topk_xla at large N (the matmul itself is HBM-bound
-    and near speed-of-light; the global sort is not). Blocking keeps the
-    HBM traffic identical — one pass over the chunk matrix — while each
-    sort only spans `block` columns, and it never materializes the full
-    [B, N] score matrix. Returns the exact same results.
+    Blocking keeps the memory traffic of cosine_topk_xla — one pass
+    over the chunk matrix — while each sort only spans `block` columns,
+    and it never materializes the full [B, N] score matrix. Returns the
+    same results. Which form is faster on a GPU is not measured yet.
     """
     n, d = vectors.shape
     b = queries.shape[0]
@@ -264,7 +111,7 @@ def cosine_topk_blocked(vectors: jax.Array, queries: jax.Array,
 
     def per_block(args):
         vblk, pblk = args
-        scores = jnp.dot(q32, vblk.astype(jnp.float32).T,
+        scores = jnp.dot(q32, vblk.astype(jnp.float32).T, precision=_HIGHEST,
                          preferred_element_type=jnp.float32) + pblk[None, :]
         vals, idx = jax.lax.top_k(scores, kk)  # [B, kk] block-local
         return vals, idx
@@ -277,18 +124,3 @@ def cosine_topk_blocked(vectors: jax.Array, queries: jax.Array,
     out_vals, pos = jax.lax.top_k(all_vals, k)
     out_idx = jnp.take_along_axis(all_idx, pos, axis=1)
     return out_vals, out_idx
-
-
-def cosine_topk(vectors, queries, penalty, k: int, *, use_pallas: bool | None = None):
-    """Dispatch. The XLA path is the production scan: measured at
-    1M×1536 bf16 on a v5e chip (pipelined dispatch, 20 reps), XLA's
-    fused matmul+top_k runs 11.6 ms/32-query batch vs 21 ms for the
-    hierarchical blocked variant and 34.7 ms for the fused Pallas kernel
-    (eval_artifacts/BENCH_r2_topk_1m.json) — the Pallas kernel's
-    iterative per-tile merge costs more than the [B, N] score
-    materialization it avoids. The kernel stays available behind
-    `use_pallas=True` as a correctness-tested reference, not a prod
-    path."""
-    if use_pallas and k <= _K_PAD:
-        return cosine_topk_pallas(vectors, queries, penalty, k)
-    return cosine_topk_xla(vectors, queries, penalty, k)

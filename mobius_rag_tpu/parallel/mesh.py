@@ -2,30 +2,24 @@
 
 The reference's only scale-out mechanism is N worker processes around a
 shared Postgres (SURVEY §2.10); here scale-out is a jax.sharding.Mesh —
-the corpus shards across the ``shard`` axis (ICI on a pod slice), and
-the encoder trains over ``dp``/``tp`` axes (models/train.py).
+the corpus shards across the ``shard`` axis, and the encoder trains
+over ``dp``/``tp`` axes (models/train.py).
 
-Multi-slice / DCN plan (SURVEY §5.8; unverifiable in this image — one
-chip — but the axis layout is chosen for it now):
+The mesh follows the algorithm, not a link topology (the cards of one
+host are joined all to all):
 
-- The 2D serve mesh maps ``shard`` to the FAST axis (intra-slice ICI)
-  and ``data`` to the slow axis, so when a mesh spans slices under
-  multislice/megascale, the per-query allgather merge of per-shard
-  top-k candidates — the only latency-critical collective on the query
-  path (parallel/sharded.py) — rides ICI only. The ``data`` axis needs
-  NO query-path collective at all (each data group scans its own
-  corpus replica), so slice boundaries fall between data groups and
-  DCN carries zero per-query traffic.
-- Corpora beyond one slice's HBM+host capacity (≳10M rows/chip × chips
-  per slice under config-5 host residency) instead split at the HOST
-  layer: one NamespaceRegistry namespace per slice with the existing
+- The 2D serve mesh carries the per-query allgather merge of per-shard
+  top-k candidates — the only collective on the query path
+  (parallel/sharded.py) — along ``shard``. The ``data`` axis needs NO
+  query-path collective at all: each data group scans its own corpus
+  replica.
+- Corpora beyond one host's device + host memory split at the HOST
+  layer instead: one NamespaceRegistry namespace per host with the
   RemoteIndexClient RPC fan-out + host-side RRF merge (index/service
-  .py) — DCN traffic is then k results/query, not candidates.
-- Ingest/publish crosses slices through the durable host queue (the
-  reference's Postgres-bus role), never through device collectives.
-
-To place slices explicitly, pass ``devices=`` grouped slice-major (the
-default ``jax.devices()`` order already is)."""
+  .py) — the traffic between hosts is then k results/query, not
+  candidates (parallel/slices.py).
+- Ingest/publish crosses hosts through the durable host queue (the
+  reference's Postgres-bus role), never through device collectives."""
 from __future__ import annotations
 
 import numpy as np

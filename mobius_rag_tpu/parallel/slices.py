@@ -1,14 +1,13 @@
 """Multi-slice serving: host-side hierarchical merge of per-slice
 search results.
 
-The device mesh scales a corpus within one slice (parallel/sharded.py:
-per-shard scan + allgather candidate merge over ICI). Beyond one
-slice's HBM+host capacity, the corpus splits at the HOST layer — one
-engine (or one RemoteIndexClient endpoint) per slice, each serving its
-own rows — and queries fan out to every slice, merging the top-k
-RESULTS per query (the only traffic that would cross DCN; see
-parallel/mesh.py's multi-slice design note and SURVEY §5.8: "DCN for
-multi-slice corpora").
+The device mesh scales a corpus within one host (parallel/sharded.py:
+per-shard scan + allgather candidate merge). Beyond one host's device +
+host memory, the corpus splits at the HOST layer — one engine (or one
+RemoteIndexClient endpoint) per slice, each serving its own rows — and
+queries fan out to every slice, merging the top-k RESULTS per query
+(the only traffic between hosts; see parallel/mesh.py and SURVEY
+§5.8).
 
 Merge semantics: results merge by the engine's rerank score (the v1.3
 weighted blend), deduplicating by chunk_id. Every per-row signal in

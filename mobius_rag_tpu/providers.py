@@ -5,7 +5,7 @@ Reference parity (§2.2):
   (app/services/embedding_provider.py:24-149). The default provider is
   the ON-CHIP encoder (models/encoder.py) — the reference's two API
   providers (OpenAI batch-100, Vertex batch-1) become one generic
-  HTTP adapter that deployments can point anywhere; the TPU path removes
+  HTTP adapter that deployments can point anywhere; the on-device path removes
   the per-request embedding bottleneck entirely (SURVEY §2.9).
 - LLM config registry: named configs from YAML + runtime CRUD with
   secret redaction (app/services/llm_config.py).
@@ -37,7 +37,7 @@ class EmbeddingProvider(Protocol):
 
 
 class OnChipProvider:
-    """Batched TPU encoder — the default."""
+    """Batched on-device encoder — the default."""
 
     def __init__(self, model=None):
         from mobius_rag_tpu.models.encoder import EncoderModel

@@ -5,10 +5,8 @@ The dense pipeline (query/engine.py filter_masks / gate_penalty /
 lexical_raw / dtag_raw) materializes several [B, C]-sized buffers per
 batch: eligibility masks, the additive gate penalty, the lexical
 segment-sum matrix and the d-tag score matrix, each feeding a
-lax.top_k over all C rows. At 10M rows that cost ~1.2 s/batch32 of
-the config-5 program (DIAG_sig_stages_10000000.json: arms_nosig
-3136 ms − proj scan 1950 ms) for work whose LIVE content is a few
-thousand candidates. This module evaluates the same semantics
+lax.top_k over all C rows — corpus-sized work whose LIVE content is a
+few thousand candidates. This module evaluates the same semantics
 candidate-locally:
 
 - strict_counts: the ONE corpus-wide pass that must remain (the
@@ -91,10 +89,7 @@ def strict_counts(index, q) -> jnp.ndarray:
     conditions has no summation-order sensitivity).
 
     Beyond _COUNT_BLOCK rows the reduction runs as a lax.scan over row
-    blocks: the one-shot [B, C] fused reduce lowered poorly at corpus
-    scale (31 ms at 2M — far off the ~1 ms the 300 MB of column reads
-    cost at HBM speed), while the blocked form keeps every transient in
-    VMEM-sized pieces."""
+    blocks, so every transient stays block-sized instead of [B, C]."""
     c = index.valid.shape[0]
     if c <= _COUNT_BLOCK:
         blk = _strict_block(index.valid, index.payer, index.state,

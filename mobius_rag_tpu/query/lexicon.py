@@ -9,7 +9,7 @@ contribute their full phrase bag as expansion, capped at
 ``max_entries_per_query`` (12), with generic single words suppressed via
 a stoplist.
 
-TPU-native differences: the lexicon is the *compile-time registry* for
+Differences: the lexicon is the *compile-time registry* for
 the device index — it assigns every entry a stable tag id (bit position
 in the j/d/p bitsets) and every distinct phrase a stable phrase id (bit
 position in ``phrase_bits``), so ingest tagging and the on-device
@@ -70,7 +70,7 @@ class LexiconExpansion:
     jurisdiction_tags: list[str] = dataclasses.field(default_factory=list)
     process_tags: list[str] = dataclasses.field(default_factory=list)
     log: list[str] = dataclasses.field(default_factory=list)
-    # TPU additions: device-id views of the match.
+    # Additions: device-id views of the match.
     tag_ids: dict[str, list[int]] = dataclasses.field(
         default_factory=lambda: {"j": [], "d": [], "p": []}
     )

@@ -6,8 +6,8 @@ division. Here the compiled hybrid program is *batched* by design, so
 the server can fold concurrent batch-of-1 arrivals into ONE program
 invocation: while a batch is in flight on the device, new arrivals
 accumulate; when it completes, the accumulated set launches as the
-next batch (continuous batching — the same discipline TPU inference
-servers use). At low load a request launches immediately (no imposed
+next batch (continuous batching — the same discipline accelerator
+inference servers use). At low load a request launches immediately (no imposed
 window); at high load batch size grows toward the service time ×
 arrival rate, and throughput approaches the pipelined bench numbers
 instead of the sync-per-query floor.
@@ -91,10 +91,8 @@ class MicroBatcher:
     # Queue depth beyond one full batch drains through the engine's
     # PIPELINED path: up to this many same-tick batches dispatch
     # before any fetch, so host fetch/assembly of batch N overlaps the
-    # device executing batch N+1. The sync-per-batch loop was the 1M
-    # served ceiling (~24 qps achieved at 100 offered while the
-    # pipelined engine measured ~600 qps on the same corpus —
-    # BENCH_r5_served_latency_1000k.json).
+    # device executing batch N+1, where a sync-per-batch loop would
+    # leave the device idle during every fetch and assembly.
     PIPELINE_DEPTH = 4
 
     async def _drain(self, loop) -> None:

@@ -56,8 +56,7 @@ def stem(word: str) -> str:
     plural/verbal/adverbial suffixes so query and document inflections
     meet, without the full snowball rule table. Cached: natural-language
     vocabulary is small and Zipf-distributed, so the suffix-rule cascade
-    runs once per distinct word instead of once per occurrence (stemming
-    was ~20% of serving host time per the round-3 profile)."""
+    runs once per distinct word instead of once per occurrence."""
     w = word
     if len(w) > 4 and w.endswith("ies"):
         w = w[:-3] + "y"

@@ -125,6 +125,86 @@ def toy_corpus(lexicon: Lexicon | None = None, *, pad_docs: int = 0,
     return recs
 
 
+BENCH_PAYERS = ("sunshine_health", "aetna", "molina", "")
+
+
+def seeded_corpus(n: int, lexicon: Lexicon, cfg=None, seed: int = 7):
+    """The benchmark corpus at the reference's operating point (bench.py,
+    SURVEY §6): `n` chunks of random unit vectors over 4 payers (one
+    unaffiliated), sampled authority and d-tags, the first 64 chunks
+    fully featurized for the lexical arm. Deterministic per seed.
+    Returns (records, vectors [n, D] f32, lexical [64, H] f32, rng) —
+    the rng continues the same stream for query generation."""
+    cfg = cfg or get_config()
+    rng = np.random.default_rng(seed)
+    vectors = rng.standard_normal((n, cfg.embed_dim)).astype(np.float32)
+    vectors /= np.linalg.norm(vectors, axis=1, keepdims=True)
+    recs = []
+    for i in range(n):
+        r = ChunkRecord(
+            chunk_id=f"c{i}", doc_id=f"doc{i % 7000}", source_id=f"s{i}",
+            text=f"policy paragraph {i} covering claims filing and authorization "
+                 f"requirements for plan {i % 97}.",
+            embedding=vectors[i],
+            payer=BENCH_PAYERS[i % len(BENCH_PAYERS)], state="FL",
+            authority_level=int(rng.integers(0, 5)),
+            filename=f"doc{i % 7000}.pdf",
+        )
+        # cheap featurization for scale: no per-chunk regex tagging
+        # (d-tags sampled instead)
+        r.lexical_weights = {}
+        r.d_tags = [int(rng.integers(0, 12))]
+        recs.append(r)
+    lexical = np.zeros((64, cfg.lexical_buckets), np.float32)
+    for i, r in enumerate(recs[:64]):
+        featurize_chunk(r, lexicon, cfg)
+        for b, w in r.lexical_weights.items():
+            lexical[i, b % cfg.lexical_buckets] += w
+    return recs, vectors, lexical, rng
+
+
+def numpy_filter_gate(cols: dict, q: dict, k: int) -> np.ndarray:
+    """Plain numpy reference of the filter gate (engine.filter_masks +
+    gate_penalty semantics): bool [B, C], True where row c is eligible
+    for query b. `cols` holds host copies of the DeviceIndex columns
+    (valid, authority, payer, state, program, j_tags, d_tags, p_tags);
+    `q` the prepared per-query arrays (payer, state, program, tag_mode,
+    inherit_authority, j_bits, d_bits, p_bits). Metadata ids: -1 = any,
+    -2 = a value the corpus never saw (matches nothing). tag_mode 0 =
+    strict with auto-relax when fewer than k rows pass strict, 1 =
+    relaxed, 2 = validity only."""
+    valid = np.asarray(cols["valid"]) > 0
+
+    def match(col, want):
+        col, want = np.asarray(col)[None, :], np.asarray(want)[:, None]
+        return (want == -1) | (col == want)
+
+    def overlap(rows, bits):
+        rows, bits = np.asarray(rows, np.uint32), np.asarray(bits, np.uint32)
+        return ((rows[None, :, :] & bits[:, None, :]) != 0).any(axis=2)
+
+    regulator = ((np.asarray(cols["authority"]) >= 0.999)
+                 & (np.asarray(cols["payer"]) < 0))[None, :]
+    inherit = (np.asarray(q["inherit_authority"]) > 0)[:, None]
+    meta = ((match(cols["payer"], q["payer"]) | (inherit & regulator))
+            & match(cols["state"], q["state"])
+            & match(cols["program"], q["program"]))
+    has_j = (np.asarray(q["j_bits"]) != 0).any(axis=1)[:, None]
+    has_dp = ((np.asarray(q["d_bits"]) != 0).any(axis=1)
+              | (np.asarray(q["p_bits"]) != 0).any(axis=1))[:, None]
+    j_ok = overlap(cols["j_tags"], q["j_bits"])
+    dp_ok = (overlap(cols["d_tags"], q["d_bits"])
+             | overlap(cols["p_tags"], q["p_bits"]))
+    strict = valid[None, :] & meta & (j_ok | ~has_j)
+    relaxed = valid[None, :] & meta & (dp_ok | ~has_dp)
+    auto = np.where(strict.sum(axis=1, keepdims=True) >= k,
+                    strict, strict | relaxed)
+    tm = np.asarray(q["tag_mode"])[:, None]
+    return np.where(tm == 0, auto,
+                    np.where(tm == 1, relaxed,
+                             np.broadcast_to(valid[None, :], auto.shape)))
+
+
 class ScriptedLLM:
     """Test LLM returning canned responses per stage (falls back to the
     first unconsumed script entry)."""

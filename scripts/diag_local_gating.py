@@ -2,7 +2,7 @@
 pipeline on the chip at the 2M (default) or 10M corpus shape — the
 round-5 follow-through on DIAG_sig_stages_10000000.json: the diagnosed
 remainder (filter masks + penalty + lexical/d-tag [B, C] arms + the
-scan's penalty gather) should collapse to the Pallas gated scan plus
+scan's penalty gather) should collapse to the gated probed scan plus
 candidate-space work.
 
 Usage: PYTHONPATH=/root/repo python scripts/diag_local_gating.py [--n 2000000]

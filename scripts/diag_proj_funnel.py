@@ -1,10 +1,8 @@
 """Projected-residual ANN experiment (candidate replacement for LUT-PQ
 ADC at the 10M config-5 scale).
 
-Finding from diag_pq_funnel: the PQ ADC scan is GATHER-bound on TPU
-(1.9 s/batch32 at 1M — XLA lowers per-element LUT gathers serially)
-and its error floods narrow funnels (W=80 recall 0.64 at 1M → 0.20 at
-10M). The MXU-native alternative: store per-row int8 PCA projections of
+The PQ ADC scan is a per-element LUT gather, and its error floods
+narrow funnels. The matmul alternative: store per-row int8 PCA projections of
 the residual (x − centroid), score probed blocks as dense int8 matmuls
 (the ivf_search_packed shape that already runs at wire speed), with the
 q·centroid add-back. Code bytes are spent on the residual's top

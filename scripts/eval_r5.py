@@ -43,14 +43,15 @@ def main() -> None:
     ap.add_argument("--sigma-runs", type=int, default=6)
     ap.add_argument("--distractors", type=int, default=400)
     ap.add_argument("--write-priors", action="store_true")
-    ap.add_argument("--tpu", action="store_true",
-                    help="default is the CPU backend (chip stays free)")
+    ap.add_argument("--device", action="store_true",
+                    help="run on the default accelerator (default: the "
+                         "CPU backend, leaving the card free)")
     ap.add_argument("--out", default=os.path.join(REPO, "eval_artifacts"))
     args = ap.parse_args()
 
     import jax
 
-    if not args.tpu:
+    if not args.device:
         jax.config.update("jax_platforms", "cpu")
 
     from eval_r4 import build_blind_stack

@@ -1,5 +1,5 @@
 """Round-5 encoder campaign (VERDICT r4 item 2): make the trained
-on-TPU encoder beat the hash baseline on the lexicon-free paraphrase
+on-device encoder beat the hash baseline on the lexicon-free paraphrase
 bank, outside the 2σ band.
 
 What changed vs the round-4 attempt (which lost to hash):

@@ -10,7 +10,7 @@ Pipeline:
   5. Forced-arm calibration matrix (a/b/c/d/s + natural) → derive_priors
      → regenerate data/router_priors.json from the framework's OWN
      calibration (replacing the round-1 reference-shaped priors).
-  6. Train the on-TPU encoder on corpus ICT pairs, checkpoint it,
+  6. Train the on-device encoder on corpus ICT pairs, checkpoint it,
      re-embed the corpus + queries with it, and eval again — the
      trained-encoder pass the round-1 verdict flagged as missing.
   7. Write eval_artifacts/EVAL_r2_*.json with a number-for-number

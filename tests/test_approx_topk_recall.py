@@ -1,15 +1,10 @@
-"""approx_max_k recall-delta contract (r4 VERDICT item 3 — resolved by
-MEASUREMENT, against the hypothesis).
+"""approx_max_k option contract (cfg.ann_approx_topk).
 
-The probed scans' final top-k optionally uses jax.lax.approx_max_k on
-TPU (cfg.ann_approx_topk) — ~70x faster than exact lax.top_k at funnel
-width. The r4 2M strict sweep measured the recall delta through the
-funnel + exact-host-re-rank stack: recall_target 0.95 → recall@10
-0.96→0.83; even 0.99 → 0.85 (true top-k rows rank deep in the
-approximate ordering, the boundary region where approx_max_k retention
-is weakest). So the default is EXACT (0.0); the op stays available by
-env for workloads whose candidates rank shallow. These tests pin:
-- the default is OFF (0.0) per the measurement above;
+The probed scans' final top-k optionally uses jax.lax.approx_max_k.
+The default is EXACT (0.0). XLA's CPU and GPU backends lower
+approx_max_k to an exact top-k (its fallback form), so on them the
+option cannot change results. These tests pin:
+- the default is OFF (0.0);
 - merged_topk on the CPU parity mesh stays EXACT regardless of the
   approx setting (bitwise mesh parity);
 - the engine's end-to-end results are identical either way on the CPU

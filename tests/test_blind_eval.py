@@ -22,7 +22,7 @@ def test_perturb_numbers_changes_every_number():
 
 def test_adversarial_corpus_shapes():
     lex = sample_lexicon()
-    recs = adversarial_corpus("cmhc", lex)
+    recs = adversarial_corpus("toy", lex)
     assert recs, "no trap records generated"
     kinds = {r.extra["trap"] for r in recs}
     assert kinds == {"near_miss", "forbidden"}

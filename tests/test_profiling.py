@@ -1,4 +1,4 @@
-"""Per-stage device profiling surface (SURVEY §5.1 TPU equivalent:
+"""Per-stage device profiling surface (SURVEY §5.1 device equivalent:
 per-kernel/stage timings in the search_id-keyed telemetry structure)."""
 import asyncio
 

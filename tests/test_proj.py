@@ -1,5 +1,5 @@
 """Projected-residual ANN backend (ops/proj.py) + the host-residency
-funnel (MRAG_HOST_FUNNEL): the MXU-native config-5 vector arm.
+funnel (MRAG_HOST_FUNNEL): the int8-matmul config-5 vector arm.
 
 Mirrors tests/test_pq.py's structure: op-level parity at full probe,
 engine-level two-stage recall on graded near-duplicates, sharded

@@ -2,8 +2,8 @@
 HBM holds per-shard residual-PQ tables (each shard clusters + encodes
 its OWN host int8 rows); the allgather merge returns k·over_fetch fused
 candidates; the exact re-rank runs from the (mesh-agnostic) host matrix.
-This is the 10M-per-chip regime scaled across a slice: ~8×10M rows on a
-v5e-8 with HBM holding codes only."""
+This is the 10M-per-card regime scaled across cards: ~4×10M rows on
+four cards with device memory holding codes only."""
 import dataclasses
 
 import numpy as np

@@ -4,7 +4,7 @@ test strategy mirrors SURVEY §4 tier 1: pure kernel tests vs numpy)."""
 import numpy as np
 import pytest
 
-from mobius_rag_tpu.ops.topk import NEG_INF, cosine_topk_pallas, cosine_topk_xla
+from mobius_rag_tpu.ops.topk import NEG_INF, cosine_topk_blocked, cosine_topk_xla
 
 
 def _oracle(vectors, queries, penalty, k):
@@ -18,7 +18,7 @@ def _normalize(x):
     return x / np.linalg.norm(x, axis=-1, keepdims=True)
 
 
-@pytest.mark.parametrize("impl", [cosine_topk_xla, cosine_topk_pallas])
+@pytest.mark.parametrize("impl", [cosine_topk_xla, cosine_topk_blocked])
 @pytest.mark.parametrize("n,b,k", [(1000, 4, 10), (513, 1, 7), (2048, 32, 25)])
 def test_topk_matches_oracle(rng, impl, n, b, k):
     d = 256
@@ -34,7 +34,7 @@ def test_topk_matches_oracle(rng, impl, n, b, k):
     np.testing.assert_allclose(np.asarray(vals), rescore, atol=2e-3)
 
 
-@pytest.mark.parametrize("impl", [cosine_topk_xla, cosine_topk_pallas])
+@pytest.mark.parametrize("impl", [cosine_topk_xla, cosine_topk_blocked])
 def test_topk_respects_mask(rng, impl):
     n, d, b, k = 600, 256, 3, 15
     vectors = _normalize(rng.standard_normal((n, d)).astype(np.float32))
@@ -51,7 +51,7 @@ def test_topk_respects_mask(rng, impl):
     assert np.isin(idx[live], allowed).all()
 
 
-@pytest.mark.parametrize("impl", [cosine_topk_xla, cosine_topk_pallas])
+@pytest.mark.parametrize("impl", [cosine_topk_xla, cosine_topk_blocked])
 def test_topk_fewer_live_than_k(rng, impl):
     n, d, b, k = 300, 256, 2, 10
     vectors = _normalize(rng.standard_normal((n, d)).astype(np.float32))
@@ -97,3 +97,46 @@ def test_topk_blocked_matches_xla(rng):
     bv, bi = cosine_topk_blocked(v, q, pen, k, block=512)
     np.testing.assert_allclose(np.asarray(bv), np.asarray(ev), atol=1e-5)
     assert (np.asarray(bi) == np.asarray(ei)).all()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_topk_xla_low_precision_storage(rng, dtype):
+    """bf16 and int8 chunk matrices: the scan widens to float32 at
+    HIGHEST precision, so scores equal a float64 oracle over the same
+    stored values up to float32 summation error (1e-5 at D=256)."""
+    import jax.numpy as jnp
+
+    n, d, b, k = 700, 256, 4, 10
+    vectors = _normalize(rng.standard_normal((n, d)).astype(np.float32))
+    queries = _normalize(rng.standard_normal((b, d)).astype(np.float32))
+    if dtype == "int8":
+        stored = np.clip(np.round(vectors * 127 / np.abs(vectors).max()),
+                         -127, 127).astype(np.int8)
+        dev = jnp.asarray(stored)
+        ref = stored.astype(np.float64)
+    else:
+        dev = jnp.asarray(vectors, jnp.bfloat16)
+        ref = np.asarray(dev.astype(jnp.float32), np.float64)
+    penalty = np.zeros(n, np.float32)
+    vals, idx = cosine_topk_xla(dev, queries, penalty, k)
+    want = queries.astype(np.float64) @ ref.T
+    got = np.take_along_axis(want, np.asarray(idx), axis=1)
+    np.testing.assert_allclose(np.asarray(vals), got, rtol=1e-5, atol=1e-5)
+    kth = np.sort(want, axis=1)[:, -k]
+    assert (got >= kth[:, None] - 1e-5).all()
+
+
+def test_topk_xla_wide_k(rng):
+    """k past 128 (the host-residency funnel widths): exact and sorted."""
+    n, d, b, k = 2000, 64, 3, 300
+    vectors = _normalize(rng.standard_normal((n, d)).astype(np.float32))
+    queries = _normalize(rng.standard_normal((b, d)).astype(np.float32))
+    penalty = np.zeros(n, np.float32)
+    penalty[::7] = NEG_INF
+    vals, idx = cosine_topk_xla(vectors, queries, penalty, k)
+    ovals, _ = _oracle(vectors, queries, penalty, k)
+    vals = np.asarray(vals)
+    assert vals.shape == (b, k)
+    np.testing.assert_allclose(vals, ovals, atol=1e-5)
+    assert (np.diff(vals, axis=1) <= 0).all()
+    assert not np.isin(np.asarray(idx), np.arange(0, n, 7)).any()
